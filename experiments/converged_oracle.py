@@ -1,5 +1,5 @@
-"""Converged statistical-parity gate: TPU vs the independent NumPy
-oracle at HIGH spp (VERDICT r3 'missing' item 2).
+"""Converged statistical-parity gate: the device render vs the
+independent NumPy oracle at HIGH spp.
 
 The reference's own harness measures statistical equality (RMSE over
 linear radiance at equal spp, main.cpp:117-126); its real golden
@@ -13,17 +13,17 @@ so this also bounds accumulated numeric drift over 100 samples x
 Usage: python experiments/converged_oracle.py [spp]
 """
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 
 def main():
     spp = int(sys.argv[1]) if len(sys.argv) > 1 else 100
-    import numpy as np
-
-    from bench import _render_batched
+    from bench import _render
     from tpu_pathtracer.config import RenderConfig
     from tpu_pathtracer.models.spheres import (random_spheres_scene,
                                                three_sphere_scene)
@@ -36,16 +36,15 @@ def main():
         cfg = RenderConfig(nx=96, ny=64, ns=spp, max_depth=depth)
         scene, cam = maker(cfg.nx, cfg.ny)
         t0 = time.time()
-        _, img = _render_batched(scene, cam, cfg, spp, min(spp, 25))
-        img = np.asarray(img).reshape(cfg.ny, cfg.nx, 3)
-        t_tpu = time.time() - t0
+        _, img = _render(scene, cam, cfg, spp)
+        t_dev = time.time() - t0
         t0 = time.time()
         ref = render_oracle(scene, cam, cfg)
         t_cpu = time.time() - t0
         err = golden.rmse(img, ref)
         ss = golden.ssim(img, ref)
         print(f"{name} 96x64@{spp}spp depth{depth}: rmse {err:.2e} "
-              f"ssim {ss:.5f}  (tpu {t_tpu:.1f}s, oracle {t_cpu:.0f}s)",
+              f"ssim {ss:.5f}  (device {t_dev:.1f}s, oracle {t_cpu:.0f}s)",
               flush=True)
 
 

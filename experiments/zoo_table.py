@@ -1,4 +1,4 @@
-"""Model-zoo material table (TODO.txt:293-298 recipe) on the TPU.
+"""Model-zoo material table (TODO.txt:293-298 recipe) on the device.
 
 One compiled executable serves all four materials (same shapes).
 
@@ -23,10 +23,10 @@ def main():
     for mat in ("coat", "diffuse", "glass", "sss"):
         scene, cam = model_zoo_scene(512, 512, material=mat, nu=96, nv=64)
         np.asarray(_render_regen_jit(scene, cam, cfg, jnp.uint32(1),
-                                     jnp.uint32(0), normalize=False))
+                                     jnp.uint32(0), normalize=False)[0])
         t0 = time.perf_counter()
-        fb = _render_regen_jit(scene, cam, cfg, jnp.uint32(spp),
-                               jnp.uint32(0), normalize=False)
+        fb, _ = _render_regen_jit(scene, cam, cfg, jnp.uint32(spp),
+                                  jnp.uint32(0), normalize=False)
         fb.block_until_ready()
         a = np.asarray(fb)
         el = time.perf_counter() - t0

@@ -35,9 +35,10 @@ def build(args):
     elif args.scene == "staircase":
         scene, cam = mesh_scenes.procedural_staircase_scene(cfg.nx, cfg.ny)
     elif args.scene == "staircase-hires":
-        # asset-scale tessellation (~154k tris) on the packet-BVH path
+        # asset-scale tessellation (~154k tris)
+        from tpu_pathtracer.ops.bvh import MESH_LEAF_WIDTH
         scene, cam = mesh_scenes.procedural_staircase_scene(
-            cfg.nx, cfg.ny, prims_per_leaf=64, sub=20)
+            cfg.nx, cfg.ny, prims_per_leaf=MESH_LEAF_WIDTH, sub=20)
     elif args.scene == "knot":
         from tpu_pathtracer.models.shapes import knot_zoo_scene
         scene, cam = knot_zoo_scene(cfg.nx, cfg.ny)
@@ -54,8 +55,7 @@ def build(args):
         from tpu_pathtracer.models.shapes import rocks_zoo_scene
         scene, cam = rocks_zoo_scene(cfg.nx, cfg.ny)
     elif args.scene == "terrain-big":
-        # dragon-scale irregular mesh (~668k tris): exercises the SAH
-        # BVH4 quant tier via per-mesh expected-cost tier selection
+        # dragon-scale irregular mesh (~668k tris)
         from tpu_pathtracer.models.shapes import terrain_big_zoo_scene
         scene, cam = terrain_big_zoo_scene(cfg.nx, cfg.ny)
     elif args.scene.endswith(".bvh"):

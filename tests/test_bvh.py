@@ -5,7 +5,9 @@ import os
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
+import bvh_cases
 from tpu_pathtracer.ops import bvh as B
 from tpu_pathtracer.ops.vec import FLT_MAX
 
@@ -172,3 +174,18 @@ def test_single_node_traversal_matches_dual():
         jnp.asarray(np.where(hit, t * 0.5, 1e30), np.float32))
     assert not np.any((np.asarray(capped.tri_id) >= 0) & hit
                       & (np.asarray(capped.t) >= t))
+
+
+@pytest.fixture(scope="module", params=bvh_cases.LEAF_WIDTHS)
+def soup_case(request):
+    v0, v1, v2 = _random_tris(700, seed=3)
+    o, d = _random_rays(256, seed=4)
+    return bvh_cases.case(v0, v1, v2, None, request.param, o, d)
+
+
+def test_soup_traverse_nearest_vs_brute_force(soup_case):
+    bvh_cases.check_nearest(*soup_case)
+
+
+def test_soup_traverse_anyhit_vs_brute_force(soup_case):
+    bvh_cases.check_anyhit(*soup_case)

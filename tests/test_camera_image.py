@@ -88,3 +88,34 @@ def test_texture_atlas_fetch_wrap():
     np.testing.assert_allclose(np.asarray(out[0]), imgs[0][0, 0], atol=1e-6)
     np.testing.assert_allclose(np.asarray(out[1]), imgs[0][0, 0], atol=1e-6)
     np.testing.assert_allclose(np.asarray(out[2]), 0.5, atol=1e-6)
+
+
+def test_png_writer_round_trip(tmp_path):
+    """The stdlib PNG writer: decode its chunks by hand and get back the
+    sRGB bytes, top row first."""
+    import struct
+    import zlib
+
+    from tpu_pathtracer.utils.image import linear_to_srgb_u8, write_png
+
+    img = np.random.RandomState(0).rand(5, 7, 3).astype(np.float32) * 1.5
+    path = str(tmp_path / "x.png")
+    write_png(path, img)
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(tag + body) & 0xFFFFFFFF
+        chunks[tag] = chunks.get(tag, b"") + body
+        pos += 12 + n
+    w, h, depth, ctype = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    assert (w, h, depth, ctype) == (7, 5, 8, 2)
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = raw.reshape(5, 1 + 7 * 3)
+    assert (rows[:, 0] == 0).all()  # filter type None
+    np.testing.assert_array_equal(rows[:, 1:].reshape(5, 7, 3),
+                                  linear_to_srgb_u8(img)[::-1])
+    assert b"IEND" in chunks

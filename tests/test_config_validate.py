@@ -3,7 +3,7 @@
 The reference's config system is its #define matrix (kernels.cu:13–24)
 where an invalid combo fails at compile time; here every constructed
 config is checked in ``__post_init__`` and constraint violations emit
-RuntimeWarnings (VERDICT r3 item 6)."""
+RuntimeWarnings."""
 
 import warnings
 
@@ -22,75 +22,9 @@ def test_clean_default_config_is_silent():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         RenderConfig()
-        RenderConfig(nx=512, ny=512, ns=4, packet_packs=2,
-                     packet_split=True, stats=True, check_nans=True)
-
-
-def test_split_without_packs_warns():
-    _, msgs = _warns(packet_split=True)
-    assert any("packet_packs > 1" in m for m in msgs)
-
-
-def test_oct_with_packs_warns():
-    _, msgs = _warns(oct=True, packet_packs=2, prefetch=False)
-    assert any("multi-packet" in m for m in msgs)
-
-
-def test_oct_disables_prefetch_warns():
-    _, msgs = _warns(oct=True)  # prefetch defaults True
-    assert any("prefetch" in m for m in msgs)
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        RenderConfig(oct=True, prefetch=False, pair_pf=False)
-
-
-def test_leaf_cull_disables_prefetch_warns():
-    _, msgs = _warns(leaf_cull=True)
-    assert any("leaf_cull" in m and "prefetch" in m for m in msgs)
-
-
-def test_mx_leaf_shadows_regroup_warns():
-    _, msgs = _warns(mx_leaf=True, regroup=True)
-    assert any("precedence" in m for m in msgs)
-
-
-def test_fast_math_on_mx_or_rg_warns():
-    _, msgs = _warns(fast_math=True, mx_leaf=True)
-    assert any("fast_math" in m for m in msgs)
-
-
-def test_regroup_dense_clamp_warns():
-    _, msgs = _warns(regroup=True, regroup_dense=4096)
-    assert any("clamped" in m for m in msgs)
+        RenderConfig(nx=512, ny=512, ns=4, stats=True, check_nans=True)
 
 
 def test_check_nans_without_stats_warns():
     _, msgs = _warns(check_nans=True)
     assert any("stats=True" in m for m in msgs)
-
-
-def test_non_pow2_packet_width_warns():
-    _, msgs = _warns(packet_width=48)
-    assert any("power of two" in m for m in msgs)
-
-
-def test_packs_without_flat_table_warns_at_dispatch():
-    """Mesh-dependent constraint: packet_packs > 1 on a layout without
-    a flat SMEM node table runs the single-packet kernel — the
-    dispatch eligibility check itself must warn (config.py can't see
-    the mesh). Both packet_trace and packet_occluded route through
-    _mp_eligible."""
-    from tpu_pathtracer.ops.pallas_bvh import _mp_eligible
-
-    with pytest.warns(RuntimeWarning, match="single-packet"):
-        assert not _mp_eligible(2, smem_nodes=False, quant=False,
-                                top_rows=0, cpb=1)
-    with pytest.warns(RuntimeWarning, match="single-packet"):
-        assert not _mp_eligible(4, smem_nodes=True, quant=False,
-                                top_rows=1024, cpb=1)
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        assert _mp_eligible(2, smem_nodes=True, quant=False,
-                            top_rows=0, cpb=1)
-        assert not _mp_eligible(1, smem_nodes=False, quant=False,
-                                top_rows=0, cpb=1)

@@ -144,3 +144,17 @@ def test_checker():
     thr = np.asarray(out.throughput)
     # hit_p = 0.3 uniform: sin(3)^3 > 0? sin(3)≈0.141 → product > 0 → color2
     np.testing.assert_allclose(thr, [[0.0, 1.0, 0.0]] * len(thr), atol=1e-6)
+
+
+def test_presets_table():
+    from tpu_pathtracer.models.presets import ALL_PRESETS
+    from tpu_pathtracer.models.scene import make_materials
+
+    rows = [fn() for fn in ALL_PRESETS.values()]
+    mats = make_materials(rows)
+    assert mats.count == 9
+    # tinted glass absorption = -log(color)/10 (scene_materials.h:79)
+    import math
+    tg = rows[list(ALL_PRESETS).index("model_tinted_glass")]
+    np.testing.assert_allclose(tg["absorption"][0],
+                               -math.log(0.0972942) / 10.0, rtol=1e-6)

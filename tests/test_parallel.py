@@ -89,17 +89,3 @@ def test_config5_dress_rehearsal_tiled_checkpointed_resume(tmp_path):
     np.testing.assert_allclose(img, straight, atol=1e-5)
 
 
-def test_tiled_forced_packet_matches_single():
-    """Tiling composed with the packet-BVH path (forced on CPU interpret):
-    the multi-chip large-mesh render equals the single-device one."""
-    from tpu_pathtracer.models.shapes import knot_zoo_scene
-    from tpu_pathtracer.parallel.tiles import render_image_tiled
-
-    cfg = RenderConfig(nx=16, ny=8, ns=1, max_depth=3, rays_per_chunk=128,
-                       textures=False, force_feat_kernels=True,
-                       packet_threshold=1)
-    scene, cam = knot_zoo_scene(cfg.nx, cfg.ny, nu=48, nv=12,
-                                prims_per_leaf=32)  # 1152 tris
-    single = render_image(scene, cam, cfg)
-    tiled = render_image_tiled(scene, cam, cfg)
-    np.testing.assert_array_equal(single, tiled)

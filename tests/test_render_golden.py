@@ -159,3 +159,18 @@ def test_profiling_measure_reports_rays():
     assert m.rays >= m.paths  # at least one ray per path
     assert m.mrays_per_sec is not None and m.mrays_per_sec > 0
     assert "Mpaths/s" in repr(m)
+
+
+def test_oracle_pixel_subsets_partition_the_frame():
+    """Disjoint pixel-id sets rendered separately (as chip_smoke.py's
+    oracle workers do) reassemble the whole-frame oracle render."""
+    import numpy as np
+
+    cfg = RenderConfig(nx=16, ny=12, ns=2, max_depth=4)
+    scene, cam = three_sphere_scene(cfg.nx, cfg.ny)
+    whole = render_oracle(scene, cam, cfg)
+    ids = np.arange(cfg.num_pixels)
+    parts = [render_oracle(scene, cam, cfg, pixels=p)
+             for p in np.array_split(ids, 3)]
+    np.testing.assert_array_equal(
+        np.concatenate(parts).reshape(cfg.ny, cfg.nx, 3), whole)

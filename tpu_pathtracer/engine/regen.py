@@ -11,8 +11,7 @@ a *pixel-stationary* schedule: lane ℓ owns pixels {ℓ, ℓ+M, ℓ+2M, …} an
 traces all their samples back to back. The moment a path terminates the
 lane immediately starts its next sample (or its next pixel). Because each
 lane accumulates its own pixel's radiance, the framebuffer needs **no
-scatter** (TPU scatter-add measured ~2.5× the cost of the intersection
-kernel itself) and no task queue/cumsum: finished pixels are written into
+scatter** and no task queue/cumsum: finished pixels are written into
 a ``[rounds, M]`` buffer with a one-hot row add, and the final image is a
 reshape. Lane workloads average over rounds × ns paths, so load imbalance
 is negligible.
@@ -34,42 +33,17 @@ import numpy as np
 from tpu_pathtracer.camera import Camera
 from tpu_pathtracer.config import RenderConfig
 from tpu_pathtracer.engine.wavefront import (BounceState, Stats,
-                                              _use_packet, bounce_step,
-                                              make_view)
+                                              bounce_step, make_view)
 from tpu_pathtracer.models.scene import Scene
 from tpu_pathtracer.ops.v3 import V3, where as vwhere
 
 
-def _pool_size(config: RenderConfig, num_pixels: int,
-               scene: Scene | None = None) -> int:
-    """Lane-pool size. Smaller pools cover more pixels per lane, which
-    averages away the heavy-pixel tail (measured: 128k lanes → 67%
-    utilization; 8–32k → ~90%, 5.55 s → 4.4 s on the headline bench);
-    per-iteration overheads stay negligible down to ~8k lanes.
-
-    On the packet-BVH path the optimum flips: per-dispatch kernel
-    overhead is amortized over whole 1024-ray packets, and a bigger
-    sort window makes denser key-neighborhoods per packet — the pool
-    sweeps (PERFORMANCE.md; experiments/sort_ab.py, pool_probe.py)
-    measured 64k lanes ~40% faster than 16k, 128k +7% over 64k, and —
-    after the round-3 carry diet — 192k another +6-9% (knot 183 vs
-    201, dragon 435 vs 466, stairs-notex 1295 vs 1355 ms/spp), with
-    256k regressing again (carry spill). EXCEPT with image textures
-    active: the texture path's per-iteration intermediates (atlas
-    gather + texcoords) tip the 192k carry into spill — textured
-    stairs measured 1584 (128k) vs 1742 (192k) — so the auto pool is
-    192k untextured, 128k textured."""
-    if config.rays_per_chunk:
-        m = config.rays_per_chunk
-    elif scene is not None and _use_packet(scene, config):
-        textured = config.textures and scene.tex_atlas is not None
-        m = (1 << 17) if textured else (3 << 16)
-    else:
-        # 32k since r4: the lane-layout kernels tripled kernel speed,
-        # so per-iteration fixed costs weigh more and the bigger pool
-        # amortizes them (r4 sweep: 16k 1.656 s / 32k 1.643 / 48k
-        # 1.893 / 64k 1.689 on the headline)
-        m = 1 << 15
+def _pool_size(config: RenderConfig, num_pixels: int) -> int:
+    """Lane-pool size: ``config.rays_per_chunk`` or 32Ki lanes, capped at
+    the pixel count. Smaller pools cover more pixels per lane, which
+    averages away the heavy-pixel tail; bigger pools amortize the fixed
+    per-iteration costs. The 32Ki default is not yet tuned for the GPU."""
+    m = config.rays_per_chunk or (1 << 15)
     return int(min(m, num_pixels))
 
 
@@ -89,12 +63,12 @@ def render_regen(scene: Scene, camera: Camera, config: RenderConfig,
     n = num_pixels if num_pixels is not None else config.num_pixels
     ns = jnp.asarray(config.ns if ns is None else ns, jnp.uint32)
     s0 = jnp.asarray(s0, jnp.uint32)
-    m = _pool_size(config, n, scene)
+    m = _pool_size(config, n)
     rounds = (n + m - 1) // m
     inv_ns = (1.0 / ns.astype(jnp.float32)) if normalize else jnp.float32(1.0)
 
     fw = config.flush_window
-    view = make_view(scene, config)
+    view = make_view(scene)
     pixel_offset = jnp.asarray(pixel_offset, jnp.uint32)
     # varying-zero seeds: carries must match the body's sharding varyance
     # under shard_map (pixel_offset is the per-device-varying input)
@@ -126,10 +100,8 @@ def render_regen(scene: Scene, camera: Camera, config: RenderConfig,
 
         want = dead & (cur_sample >= ns)           # pixel complete
         if fw and fw < rounds:
-            # Sliding flush window (regen-body diet, VERDICT r4 item
-            # 5): the full one-hot rewrites all rounds x m out rows
-            # (~24 MB/iter r+w on the headline) to flush a handful of
-            # lanes. Restrict the add to a W-row dynamic slice at
+            # Sliding flush window: the full one-hot rewrites all
+            # rounds x m out rows to flush a handful of lanes. Restrict the add to a W-row dynamic slice at
             # base = min live round — in-place dynamic_update_slice
             # traffic is W/rounds of the full rewrite. Lanes > W-1
             # rounds ahead of the slowest STALL their flush (the lane
@@ -241,9 +213,11 @@ def render_regen(scene: Scene, camera: Camera, config: RenderConfig,
 @functools.partial(jax.jit, static_argnames=("config", "normalize"))
 def _render_regen_jit(scene: Scene, camera: Camera, config: RenderConfig,
                       ns: jnp.ndarray, s0: jnp.ndarray = 0,
-                      normalize: bool = True) -> jnp.ndarray:
-    return render_regen(scene, camera, config, ns=ns, s0=s0,
-                        normalize=normalize)
+                      normalize: bool = True):
+    """(``[num_pixels, 3]`` framebuffer, regen loop iterations)."""
+    out = render_regen(scene, camera, config, ns=ns, s0=s0,
+                       normalize=normalize, return_iters=True)
+    return out[0], out[1]
 
 
 def render_sample_range(scene: Scene, camera: Camera, config: RenderConfig,
@@ -251,8 +225,8 @@ def render_sample_range(scene: Scene, camera: Camera, config: RenderConfig,
     """Radiance SUM over samples [s0, s0+ns) for every pixel —
     [ny, nx, 3]. The building block for progressive/checkpointed renders:
     sums over disjoint ranges add up to exactly a straight run's sum."""
-    fb = _render_regen_jit(scene, camera, config, jnp.uint32(ns),
-                           jnp.uint32(s0), normalize=False)
+    fb, _ = _render_regen_jit(scene, camera, config, jnp.uint32(ns),
+                              jnp.uint32(s0), normalize=False)
     return np.asarray(fb).reshape(config.ny, config.nx, 3)
 
 
@@ -261,6 +235,6 @@ def render_image_regen(scene: Scene, camera: Camera, config: RenderConfig,
     """Full-frame render via the regeneration engine; returns
     [ny, nx, 3] linear mean radiance. ``ns`` overrides config.ns without
     recompiling (the sample count is a dynamic scalar)."""
-    fb = _render_regen_jit(scene, camera, config,
-                           jnp.uint32(ns if ns is not None else config.ns))
+    fb, _ = _render_regen_jit(scene, camera, config,
+                              jnp.uint32(ns if ns is not None else config.ns))
     return np.asarray(fb).reshape(config.ny, config.nx, 3)

@@ -122,8 +122,8 @@ def procedural_staircase_mesh(num_steps: int = 14,
     ``sub`` subdivides every face into a sub×sub grid: the surfaces are
     identical (coplanar subdivision) but the triangle count scales by
     sub² — sub=16 gives a ~164k-triangle scene at the real staircase
-    asset's scale (reference staircase ≈ 100–200k tris), exercising the
-    packet-BVH path with the exact same radiance as the coarse mesh.
+    asset's scale (reference staircase ≈ 100–200k tris) with the exact
+    same radiance as the coarse mesh.
     """
     tris: list = []
     # floor (woodFloor, meshID 17)
@@ -183,8 +183,7 @@ def procedural_staircase_scene(nx: int, ny: int,
     """Self-contained staircase-style scene: mesh + BVH + textures + NEE
     light + const sky — the full reference pipeline without its private
     assets. ``sub``>1 tessellates to asset scale (see
-    procedural_staircase_mesh); sub=16 + prims_per_leaf=128 is the
-    packet-BVH configuration at the real asset's triangle count."""
+    procedural_staircase_mesh)."""
     v0, v1, v2, tc, mid = procedural_staircase_mesh(num_steps,
                                                     prims_per_leaf, sub)
     mesh = build_bvh(v0, v1, v2, tc, mid, prims_per_leaf=prims_per_leaf)

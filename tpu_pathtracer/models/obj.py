@@ -16,7 +16,7 @@ import numpy as np
 from tpu_pathtracer.camera import Camera, make_camera
 from tpu_pathtracer.models.scene import (DIFFUSE, SKY_CONST, Scene,
                                          make_materials, make_scene)
-from tpu_pathtracer.ops.bvh import build_bvh
+from tpu_pathtracer.ops.bvh import MESH_LEAF_WIDTH, build_bvh
 
 
 def load_obj(path: str):
@@ -70,7 +70,7 @@ def load_obj(path: str):
 
 def load_obj_scene(path: str, nx: int, ny: int,
                    material: Optional[dict] = None,
-                   prims_per_leaf: int = 64,
+                   prims_per_leaf: int = MESH_LEAF_WIDTH,
                    use_nee: bool = True) -> Tuple[Scene, Camera]:
     """OBJ → BVH → renderable scene with an auto-framed camera.
 

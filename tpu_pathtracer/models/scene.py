@@ -111,20 +111,6 @@ class MeshData:
     bounds_max: jnp.ndarray  # [3]
     first_leaf: int = dataclasses.field(metadata=dict(static=True))
     prims_per_leaf: int = dataclasses.field(metadata=dict(static=True))
-    # optional SAH BVH4 tables (ops/bvh4.Bvh4Data) for the
-    # explicit-stack packet kernel; carries its OWN reordered cluster
-    # blocks, so the heap fields above stay authoritative for every
-    # other path (CPU traversal, serialization, brute oracle)
-    bvh4: Optional[object] = None
-    # optional COMPACTED triangle arrays for the TPU brute kernels:
-    # the heap layout interleaves inf-sentinel padding inside every
-    # leaf (396 real tris pad to 640 slots on the toy staircase), and
-    # the brute path doesn't need heap order at all — make_view uses
-    # these when present so the scalar-broadcast loop runs only live
-    # triangles. (v0, v1, v2, tex_coords, mesh_id) with no padding;
-    # built by ops/bvh.build_bvh for meshes small enough to ever take
-    # the brute path.
-    brute: Optional[tuple] = None
 
     @property
     def num_tris(self) -> int:

@@ -17,7 +17,7 @@ from tpu_pathtracer.camera import Camera, make_camera
 from tpu_pathtracer.models import presets
 from tpu_pathtracer.models.scene import (SKY_CONST, Scene,
                                          make_materials, make_scene)
-from tpu_pathtracer.ops.bvh import build_bvh
+from tpu_pathtracer.ops.bvh import MESH_LEAF_WIDTH, build_bvh
 
 
 def torus_mesh(nu: int = 96, nv: int = 64, big_r: float = 3.0,
@@ -57,7 +57,7 @@ MODEL_ZOO_MATERIALS = {
 
 def model_zoo_scene(nx: int, ny: int, material: str = "coat",
                     nu: int = 96, nv: int = 64,
-                    prims_per_leaf: int = 64) -> Tuple[Scene, Camera]:
+                    prims_per_leaf: int = MESH_LEAF_WIDTH) -> Tuple[Scene, Camera]:
     """A ~12k-triangle torus (teapot-class) on a diffuse floor plane under
     the NEE sphere light — the reference's model-zoo benchmark recipe."""
     v0, v1, v2, tc = torus_mesh(nu, nv)
@@ -142,9 +142,9 @@ def torus_knot_mesh(nu: int = 512, nv: int = 100, p: int = 2, q: int = 3,
 def terrain_mesh(n: int = 288, octaves: int = 6, struts: int = 600,
                  seed: int = 7, extent: float = 16.0):
     """Irregular, non-parametric test mesh: fBm-displaced terrain on a
-    vertex-jittered grid plus a lattice of thin struts (VERDICT r2 item
-    8 — real-world-topology stress: irregular tessellation + thin
-    features, unlike the smooth parametric zoo tubes).
+    vertex-jittered grid plus a lattice of thin struts (real-world
+    topology stress: irregular tessellation + thin features, unlike the
+    smooth parametric zoo tubes).
 
     - heightfield: ``octaves`` of bilinear value noise, amplitude 2^-o;
       grid xy positions jittered ±0.35 cells so triangle size/aspect
@@ -236,7 +236,7 @@ def terrain_mesh(n: int = 288, octaves: int = 6, struts: int = 600,
 
 def terrain_zoo_scene(nx: int, ny: int, material: str = "diffuse",
                       n: int = 288, struts: int = 600,
-                      prims_per_leaf: int = 64,
+                      prims_per_leaf: int = MESH_LEAF_WIDTH,
                       builder: str = "auto") -> Tuple[Scene, Camera]:
     """Irregular-mesh zoo scene (~168k tris): noised terrain + thin strut
     lattice on a floor under the NEE light. Exists to re-check BVH
@@ -262,15 +262,8 @@ def terrain_big_zoo_scene(nx: int, ny: int, material: str = "diffuse"
                           ) -> Tuple[Scene, Camera]:
     """Dragon-scale genuinely-irregular mesh (~668k real tris, 1M
     padded slots): the terrain generator at 4x density + 2x struts
-    (VERDICT r3 item 8 — the 'dragon-class' knot is parametric/uniform
-    and topology-friendly to the complete heap; this scene is not).
-
-    Exercises the SAH BVH4 QUANT tier at dragon scale: the f32 node
-    table exceeds SMEM_TABLE_BUDGET, and the per-mesh expected-cost
-    tier selection (ops/bvh4.QUANT_AUTO_RATIO) attaches the
-    uint16-quantized tables automatically (measured expected-cost
-    ratio ~0.74-class topology, vs 0.95 for the knot/dragon which
-    stay on the heap kernel's quantized-SMEM path)."""
+    (the 'dragon-class' knot is parametric/uniform and topology-friendly
+    to the complete heap; this scene is not)."""
     return terrain_zoo_scene(nx, ny, material=material, n=576,
                              struts=1200)
 
@@ -333,7 +326,7 @@ def _value_noise3(p: np.ndarray, rng, octaves: int = 3,
 
 def rock_pile_mesh(n_big: int = 140, n_small: int = 100, seed: int = 5,
                    spread: float = 4.5):
-    """Genuinely irregular dragon-scale mesh (VERDICT r4 item 3): a
+    """Genuinely irregular dragon-scale mesh: a
     mound of fBm-displaced, anisotropically-scaled, randomly-rotated
     icosphere "rocks" that deeply interpenetrate. Unlike the parametric
     knot (a smooth tube with near-ideal BVH locality) this has
@@ -380,7 +373,7 @@ def rock_pile_mesh(n_big: int = 140, n_small: int = 100, seed: int = 5,
 
 def rocks_zoo_scene(nx: int, ny: int, material: str = "diffuse",
                     n_big: int = 140, n_small: int = 100, seed: int = 5,
-                    prims_per_leaf: int = 64,
+                    prims_per_leaf: int = MESH_LEAF_WIDTH,
                     builder: str = "auto") -> Tuple[Scene, Camera]:
     """Irregular dragon-scale zoo scene (~845k tris): the rock pile on
     a floor plane under the NEE light. The honest counterpart to the
@@ -405,18 +398,10 @@ def rocks_zoo_scene(nx: int, ny: int, material: str = "diffuse",
 
 def knot_zoo_scene(nx: int, ny: int, material: str = "coat",
                    nu: int = 512, nv: int = 100,
-                   prims_per_leaf: int = 64) -> Tuple[Scene, Camera]:
+                   prims_per_leaf: int = MESH_LEAF_WIDTH) -> Tuple[Scene, Camera]:
     """Large-mesh model-zoo scene: a torus-knot tube (default ~102k tris,
     dragon-class at nu=1664, nv=262) on a diffuse floor under the NEE
-    light — the workload for the packet-BVH TPU path. ``prims_per_leaf``
-    defaults to 32-triangle clusters (width sweep: finer leaf culling
-    shrinks the visit union; PERFORMANCE.md).
-
-    Builder is the SAH default: at 128-wide clusters the median order's
-    contiguous tube runs won (0.585 vs 0.70 s/spp), but at width 32 the
-    preference flips — SAH 280 vs median 307 ms/spp — because narrow
-    leaves make tree quality dominate over leaf-run contiguity.
-    """
+    light. The builder is the SAH default."""
     v0, v1, v2, tc = torus_knot_mesh(nu, nv)
     mesh = build_bvh(v0, v1, v2, tc, np.ones((v0.shape[0],), np.int32),
                      prims_per_leaf=prims_per_leaf)

@@ -20,8 +20,8 @@ _TRIED = False
 
 
 def _build(src_dir: str, path: str) -> bool:
-    """Compile the builder on demand (g++ is a baked-in tool; the build is
-    ~2 s). Quiet no-op on any failure — callers fall back to NumPy."""
+    """Compile the builder on demand (about two seconds with g++). Quiet
+    no-op on any failure — callers fall back to NumPy."""
     src = os.path.join(src_dir, "bvh_builder.cpp")
     # build to a per-pid temp name + atomic rename: a concurrent process
     # (parallel tests, test + bench) must never CDLL a half-written .so
@@ -68,63 +68,17 @@ def _load():
             ctypes.c_int,                    # prims_per_leaf
             ctypes.POINTER(ctypes.c_longlong),  # out slots [num_leaves*P]
         ]
-        f32p = ctypes.POINTER(ctypes.c_float)
-        i64p = ctypes.POINTER(ctypes.c_longlong)
-        lib.bvh4_build_binary.restype = ctypes.c_int
-        lib.bvh4_build_binary.argtypes = [
-            f32p, f32p, f32p,                # v0/v1/v2 [T*3]
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # T, width, n_bins
-            ctypes.c_float, ctypes.c_float,  # ci, ct
-            f32p, f32p,                      # bmin/bmax [cap*3]
-            i64p, i64p,                      # c0/c1 [cap]
-            i64p,                            # order [T]
-            i64p, i64p,                      # leaf_first/leaf_count [cap]
-            i64p,                            # meta [2]: n_nodes, depth
-        ]
         _LIB = lib
     except (OSError, AttributeError):
         _LIB = None
     return _LIB
 
 
-def native_bvh4_binary(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
-                       width: int, n_bins: int, ci: float, ct: float):
-    """Binned-SAH binary tree under the per-visit packet cost model from
-    the C++ builder (same contract as ops/bvh4._build_sah_binary), or
-    None if the native library is unavailable."""
-    lib = _load()
-    if lib is None:
-        return None
-    import ctypes as ct_
-    f32p = ct_.POINTER(ct_.c_float)
-    i64p = ct_.POINTER(ct_.c_longlong)
-    a0 = np.ascontiguousarray(v0, np.float32)
-    a1 = np.ascontiguousarray(v1, np.float32)
-    a2 = np.ascontiguousarray(v2, np.float32)
-    T = a0.shape[0]
-    cap = 2 * T
-    bmin = np.empty((cap, 3), np.float32)
-    bmax = np.empty((cap, 3), np.float32)
-    c0 = np.empty(cap, np.int64)
-    c1 = np.empty(cap, np.int64)
-    order = np.empty(T, np.int64)
-    lf = np.zeros(cap, np.int64)
-    lc = np.zeros(cap, np.int64)
-    meta = np.zeros(2, np.int64)
-    rc = lib.bvh4_build_binary(
-        a0.ctypes.data_as(f32p), a1.ctypes.data_as(f32p),
-        a2.ctypes.data_as(f32p), T, int(width), int(n_bins),
-        float(ci), float(ct),
-        bmin.ctypes.data_as(f32p), bmax.ctypes.data_as(f32p),
-        c0.ctypes.data_as(i64p), c1.ctypes.data_as(i64p),
-        order.ctypes.data_as(i64p),
-        lf.ctypes.data_as(i64p), lc.ctypes.data_as(i64p),
-        meta.ctypes.data_as(i64p))
-    if rc != 0:
-        return None
-    n = int(meta[0])
-    return (bmin[:n], bmax[:n], c0[:n], c1[:n], order,
-            lf[:n], lc[:n], int(meta[1]))
+def available() -> bool:
+    """True when the compiled builder is loaded (building it on first
+    use); False means :func:`~tpu_pathtracer.ops.bvh.build_bvh` runs
+    the NumPy median split instead."""
+    return _load() is not None
 
 
 def native_build_order(tri_min: np.ndarray, tri_max: np.ndarray,

@@ -3,7 +3,7 @@
 // The reference's builder lives in an unshipped separate project and used
 // median/split-axis partitioning (SURVEY §7 hard-part 4). This builder is
 // better: binned surface-area-heuristic (SAH) splits, constrained to the
-// implicit complete-heap layout the traversal kernels assume (a power-of-two
+// implicit complete-heap layout the traversal assumes (a power-of-two
 // leaf count, each leaf holding `prims_per_leaf` consecutive triangles).
 //
 // Exported C API (ctypes):
@@ -46,185 +46,6 @@ struct Box {
 constexpr int kBins = 16;
 
 }  // namespace
-
-// ---------------------------------------------------------------------------
-// Binned-SAH *binary* tree under the packet per-VISIT cost model — the native
-// fast path for ops/bvh4.py's `_build_sah_binary` (the Python collapse to
-// 4-wide nodes is cheap and stays shared). Same semantics: a leaf visit costs
-// the full cluster width regardless of fill, so split costs count
-// ceil(n/width) visits; leaves form when n <= width and splitting isn't
-// cheaper (ct + ci*childcost/parent_area >= ci).
-//
-// Exported C API (ctypes):
-//   int bvh4_build_binary(const float* v0, const float* v1, const float* v2,
-//                         int num_tris, int width, int n_bins,
-//                         float ci, float ct,
-//                         float* bmin, float* bmax,   // [cap*3]
-//                         long long* c0, long long* c1,       // [cap]
-//                         long long* order,                   // [num_tris]
-//                         long long* leaf_first, long long* leaf_count,
-//                         long long* out_meta);  // [2]: n_nodes, max_depth
-// cap = 2*num_tris node slots is always sufficient (every interior node has
-// two children and every leaf holds >= 1 triangle). Returns 0 on success.
-
-extern "C" int bvh4_build_binary(const float* v0f, const float* v1f,
-                                 const float* v2f, int num_tris, int width,
-                                 int n_bins, float ci, float ct, float* obmin,
-                                 float* obmax, long long* oc0, long long* oc1,
-                                 long long* oorder, long long* olf,
-                                 long long* olc, long long* ometa) {
-  if (num_tris < 1 || width < 1 || n_bins < 2 || n_bins > 64) return 1;
-  const int T = num_tris;
-  std::vector<float> tmin(3ull * T), tmax(3ull * T), cent(3ull * T);
-  for (int i = 0; i < T; ++i) {
-    for (int a = 0; a < 3; ++a) {
-      const float lo = std::min(v0f[3 * i + a],
-                                std::min(v1f[3 * i + a], v2f[3 * i + a]));
-      const float hi = std::max(v0f[3 * i + a],
-                                std::max(v1f[3 * i + a], v2f[3 * i + a]));
-      tmin[3 * i + a] = lo;
-      tmax[3 * i + a] = hi;
-      cent[3 * i + a] = 0.5f * (lo + hi);
-    }
-  }
-
-  std::vector<int> order(T);
-  for (int i = 0; i < T; ++i) order[i] = i;
-
-  struct SJob {
-    int node, lo, hi, depth;
-  };
-  std::vector<SJob> stack;
-  int n_nodes = 1;
-  int n_ordered = 0;
-  int max_depth = 0;
-  stack.push_back({0, 0, T, 0});
-
-  std::vector<double> bin_cost(n_bins);
-  while (!stack.empty()) {
-    SJob j = stack.back();
-    stack.pop_back();
-    const int n = j.hi - j.lo;
-    max_depth = std::max(max_depth, j.depth);
-
-    Box bb;
-    for (int k = j.lo; k < j.hi; ++k) {
-      const int t = order[k];
-      bb.grow(&tmin[3 * t], &tmax[3 * t]);
-    }
-    for (int a = 0; a < 3; ++a) {
-      obmin[3 * j.node + a] = bb.mn[a];
-      obmax[3 * j.node + a] = bb.mx[a];
-    }
-
-    // best split over 3 axes x n_bins boundaries (child SAH visit cost)
-    double best_cost = 1e38;
-    int best_axis = -1, best_bin = -1;
-    float lo_ax = 0.0f, inv_w = 0.0f;
-    for (int axis = 0; axis < 3; ++axis) {
-      float clo = 1e30f, chi = -1e30f;
-      for (int k = j.lo; k < j.hi; ++k) {
-        const float c = cent[3 * order[k] + axis];
-        clo = std::min(clo, c);
-        chi = std::max(chi, c);
-      }
-      if (chi - clo < 1e-12f) continue;
-      const float iw = n_bins / (chi - clo);
-      std::vector<Box> bins(n_bins);
-      std::vector<int> counts(n_bins, 0);
-      for (int k = j.lo; k < j.hi; ++k) {
-        const int t = order[k];
-        int b = (int)((cent[3 * t + axis] - clo) * iw);
-        b = std::min(std::max(b, 0), n_bins - 1);
-        bins[b].grow(&tmin[3 * t], &tmax[3 * t]);
-        counts[b]++;
-      }
-      std::vector<Box> lacc(n_bins);
-      std::vector<int> lcnt(n_bins);
-      Box acc;
-      int cnt = 0;
-      for (int b = 0; b < n_bins; ++b) {
-        acc.grow(bins[b]);
-        cnt += counts[b];
-        lacc[b] = acc;
-        lcnt[b] = cnt;
-      }
-      Box racc;
-      int rcnt = 0;
-      for (int b = n_bins - 1; b >= 1; --b) {
-        racc.grow(bins[b]);
-        rcnt += counts[b];
-        const int lc = lcnt[b - 1];
-        if (lc == 0 || rcnt == 0) continue;
-        // ceil(n/width) leaf VISITS, not triangle counts
-        const double vl = (lc + width - 1) / width;
-        const double vr = (rcnt + width - 1) / width;
-        const double cost = (double)lacc[b - 1].half_area() * vl +
-                            (double)racc.half_area() * vr;
-        if (cost < best_cost) {
-          best_cost = cost;
-          best_axis = axis;
-          best_bin = b;
-          lo_ax = clo;
-          inv_w = iw;
-        }
-      }
-    }
-
-    const double parent_area = std::max((double)bb.half_area(), 1e-30);
-    if (n <= width &&
-        (best_axis < 0 || ct + ci * best_cost / parent_area >= ci)) {
-      // leaf
-      oc0[j.node] = -1;
-      oc1[j.node] = 0;
-      olf[j.node] = n_ordered;
-      olc[j.node] = n;
-      for (int k = 0; k < n; ++k) oorder[n_ordered + k] = order[j.lo + k];
-      n_ordered += n;
-      continue;
-    }
-
-    int mid;
-    if (best_axis < 0) {
-      // degenerate centroids: median halves on the widest axis
-      int axis = 0;
-      float w = -1.0f;
-      for (int a = 0; a < 3; ++a) {
-        const float d = bb.mx[a] - bb.mn[a];
-        if (d > w) {
-          w = d;
-          axis = a;
-        }
-      }
-      mid = j.lo + n / 2;
-      std::nth_element(order.begin() + j.lo, order.begin() + mid,
-                       order.begin() + j.hi, [&](int a, int b) {
-                         return cent[3 * a + axis] < cent[3 * b + axis];
-                       });
-    } else {
-      auto it = std::partition(order.begin() + j.lo, order.begin() + j.hi,
-                               [&](int t) {
-                                 int b = (int)((cent[3 * t + best_axis] -
-                                                lo_ax) * inv_w);
-                                 b = std::min(std::max(b, 0), n_bins - 1);
-                                 return b < best_bin;
-                               });
-      mid = (int)(it - order.begin());
-      if (mid == j.lo || mid == j.hi) mid = j.lo + n / 2;  // safety
-    }
-
-    const int l_id = n_nodes++;
-    const int r_id = n_nodes++;
-    oc0[j.node] = l_id;
-    oc1[j.node] = r_id;
-    stack.push_back({l_id, j.lo, mid, j.depth + 1});
-    stack.push_back({r_id, mid, j.hi, j.depth + 1});
-  }
-
-  ometa[0] = n_nodes;
-  ometa[1] = max_depth;
-  return 0;
-}
 
 extern "C" int bvh_build_order(const float* mins, const float* maxs,
                                int num_tris, int num_leaves,

@@ -3,11 +3,6 @@
 Rebuilds intersections.h (slab AABB :7–41, plane :43–52, Möller–Trumbore
 triangle :54–83, sphere :85–104) as fixed-shape vectorized stages.
 
-TPU-first reformulation: the O(N·S) ray×sphere quadratic coefficients are
-produced by two matmuls (``dir @ centersᵀ`` and ``origin @ centersᵀ``), so
-the heavy part of brute-force sphere intersection rides the MXU instead of
-the VPU.
-
 NaN semantics: C float comparisons with NaN are false, so the reference's
 ``t0 > t_min ? t0 : t_min`` keeps the accumulator when a slab division
 yields NaN (0·inf). ``jnp.maximum`` would propagate the NaN instead, so the
@@ -48,13 +43,9 @@ def spheres_hit(origin: jnp.ndarray, direction: jnp.ndarray,
 
     Direct ``oc = o - center`` form (full f32 precision, identical to the
     reference), chunked over spheres with a running min to bound the
-    [N, chunk, 3] intermediates. This is the portable fallback; on TPU the
-    engine dispatches to the Pallas kernel
-    (:mod:`tpu_pathtracer.ops.pallas_spheres`) which computes the same
-    thing VMEM-resident. A matmul (MXU) expansion of the coefficients was
-    measured to lose ~|c|²·ε_f32 absolute precision — enough to cause
-    spurious grazing self-hits — so brute-force sphere testing stays on
-    the VPU by design.
+    [N, chunk, 3] intermediates. A matrix-product expansion of the coefficients (``|o|² - 2o·c + |c|²``) loses about
+    |c|²·ε_f32 absolute precision — enough to cause spurious grazing
+    self-hits — so no ``dot`` may enter this math.
 
     Args:
       origin, direction: ``[N, 3]`` (directions unit — ray.h:9, so a=1).
@@ -179,9 +170,7 @@ def triangles_hit(v0: jnp.ndarray, v1: jnp.ndarray, v2: jnp.ndarray,
     #   u·a = s·(d×e2) = det[s,d,e2] = (s×d)·e2
     #   v·a = d·(s×e1) = det[d,s,e1] = -((s×d)·e1)
     #   t·a = e2·(s×e1) = det[e2,s,e1] = det[s,e1,e2] = s·n
-    # ~13% fewer per-pair ops in the Pallas kernels (which take n
-    # precomputed); this jnp reference mirrors the kernel op order so
-    # kernel == jnp stays bit-exact (see tests/test_pallas_kernels.py).
+    # about 13% fewer per-pair ops.
     nrm = cross(edge1, edge2)
     a = -dot(direction, nrm)
     parallel = jnp.abs(a) < eps

@@ -3,9 +3,9 @@
 Rebuilds the reference BSDF library (material.h:27–143) and its dispatch
 (scene_materials.h:13–20) as a single fixed-shape vector stage: every BSDF
 family's candidate direction/throughput is computed for all lanes and the
-per-lane material type selects between them. On TPU masked lanes cost the
-same as active ones, so this replaces the reference's warp-divergent
-``switch`` with pure VPU work over dense ``[N]`` component arrays.
+per-lane material type selects between them, replacing the reference's
+warp-divergent ``switch`` with dense masked vector work over ``[N]``
+component arrays.
 
 Semantics parity notes (all against material.h):
   * diffuse: wi = unit(n + random_in_unit_sphere) (:28).

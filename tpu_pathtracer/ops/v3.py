@@ -1,11 +1,9 @@
 """Component-SoA 3-vectors: three ``[N]`` arrays instead of one ``[N, 3]``.
 
-On TPU the minor-most dimension is the 128-wide lane axis; a ``[N, 3]``
-float32 array pads 3 → 128 lanes (up to 42× memory amplification), so
-every elementwise op on interleaved vectors wastes ~97% of VPU lanes and
-HBM bandwidth. The fix is the same one the reference applies to CUDA AoS
+Interleaved ``[N, 3]`` state makes every elementwise op stride over a
+3-wide minor axis; the reference applies the same fix to its CUDA AoS
 data (SoA batches, SURVEY §2): store x/y/z as separate dense ``[N]``
-arrays. :class:`V3` is a NamedTuple pytree with full operator support, so
+arrays. Whether the layout still pays on the GPU is not measured. :class:`V3` is a NamedTuple pytree with full operator support, so
 vector code reads like vec3.h while compiling to dense lane-parallel ops.
 """
 

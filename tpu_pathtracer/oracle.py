@@ -195,14 +195,21 @@ def hit_tris(o, d, v0, v1, v2, t_min, t_max):
 # ----------------------------------------------------------------------------
 
 
-def render_oracle(scene, camera, config: RenderConfig) -> np.ndarray:
-    """Render [ny, nx, 3] linear radiance with plain NumPy."""
+def render_oracle(scene, camera, config: RenderConfig,
+                  pixels=None) -> np.ndarray:
+    """Render [ny, nx, 3] linear radiance with plain NumPy. With
+    ``pixels`` (flat ids j*nx + i) only those are rendered, as
+    [len(pixels), 3]: the RNG is keyed by pixel id, so disjoint id sets
+    partition the frame exactly (and can render in parallel)."""
     g = lambda x: None if x is None else np.asarray(x)
     mats = scene.materials
     mesh = scene.mesh
     nx, ny = config.nx, config.ny
-    n = nx * ny
-    pixel = np.arange(n, dtype=np.uint32)
+    if pixels is None:
+        pixel = np.arange(nx * ny, dtype=np.uint32)
+    else:
+        pixel = np.asarray(pixels, np.uint32)
+    n = pixel.shape[0]
 
     cam_origin = g(camera.origin)
     cam_llc = g(camera.lower_left_corner)
@@ -455,4 +462,5 @@ def render_oracle(scene, camera, config: RenderConfig) -> np.ndarray:
 
         fb += color
 
-    return (fb / config.ns).reshape(ny, nx, 3)
+    fb = fb / config.ns
+    return fb if pixels is not None else fb.reshape(ny, nx, 3)

@@ -6,6 +6,9 @@ Gamma happens only at write time; the framebuffer stays linear
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
 
 
@@ -33,8 +36,22 @@ def write_ppm(path: str, image: np.ndarray) -> None:
 
 
 def write_png(path: str, image: np.ndarray) -> None:
-    """PNG via PIL (replaces stb_image for output convenience)."""
-    from PIL import Image
+    """8-bit RGB PNG written with the standard library (zlib + struct),
+    rows top-down from j = ny-1 like :func:`write_ppm`."""
+    srgb = linear_to_srgb_u8(image)[::-1]
+    ny, nx, _ = srgb.shape
+    # each scanline is prefixed with filter type 0 (None)
+    raw = np.concatenate([np.zeros((ny, 1), np.uint8),
+                          srgb.reshape(ny, nx * 3)], axis=1).tobytes()
 
-    srgb = linear_to_srgb_u8(image)
-    Image.fromarray(srgb[::-1], "RGB").save(path)
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        crc = zlib.crc32(tag + data) & 0xFFFFFFFF
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(
+            ">I", crc)
+
+    ihdr = struct.pack(">IIBBBBB", nx, ny, 8, 2, 0, 0, 0)  # 8-bit RGB
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", ihdr))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))
